@@ -1,17 +1,18 @@
-"""Multi-chip scaling harness (BASELINE.md: >= 80% linear throughput
-scaling from 1 chip to a multi-host v5e slice).
+"""Multi-device scaling harness (BASELINE.md: >= 80% linear throughput
+scaling from 1 device to many).
 
 Shards the samples axis over 1, 2, 4, ... all available devices and
 reports grad-loop samples/s plus scaling efficiency vs the 1-device
 run. T scales WITH the mesh (weak scaling — the regime the north star
 describes: a fixed per-chip shard of an ever-larger recording).
 
-On a multi-host pod slice, launch one process per host with
+On several hosts, launch one process per host with
 ``picard_ica_tpu.parallel.distributed_init()`` (the harness calls it;
-it is a no-op single-process). On this repo's single-chip CI the
-harness degenerates to the 1-device row — the sharded code path
-itself is exercised on an 8-device CPU mesh by tests/test_sharding.py
-and by __graft_entry__.dryrun_multichip.
+it is a no-op single-process). On one card the harness degenerates to
+the 1-device row — the sharded code path itself is exercised on an
+8-device CPU mesh by tests/test_sharding.py and by
+__graft_entry__.dryrun_multichip, and on four cards by
+``chip_smoke.py --four``.
 
 Usage:
     python benchmarks/scaling.py [--n 64] [--t-per-chip 1000000] [--json OUT]
@@ -38,6 +39,7 @@ def run_at(n_devices: int, n: int, t_per_chip: int, reps: int) -> dict:
     from picard_ica_tpu.ops.densities import Tanh
     from picard_ica_tpu.ops.whitening import center_whiten
     from picard_ica_tpu.parallel import data_sharding, sample_mesh, shard_samples
+    from picard_ica_tpu.solver import _kernel_route
     from picard_ica_tpu.utils.datagen import generate_bench_data
 
     t = t_per_chip * n_devices
@@ -54,7 +56,7 @@ def run_at(n_devices: int, n: int, t_per_chip: int, reps: int) -> dict:
     opts = CoreOptions(
         density=Tanh(), ortho=True, extended=True, has_cov=True,
         m=7, ls_tries=10,
-        use_pallas=jax.default_backend() == "tpu",
+        use_pallas=_kernel_route(n, jnp.float32),
         kernel_precision="auto",
         data_sharding=sharding,
     )

@@ -1,15 +1,15 @@
-"""picard_ica_tpu — a TPU-native Picard ICA framework.
+"""picard_ica_tpu — a Picard ICA framework for accelerators.
 
 A from-scratch JAX/XLA/Pallas implementation of the Picard and Picard-O
 ICA algorithms (Ablin, Cardoso, Gramfort, IEEE TSP 2018,
 arXiv:1706.08171) with the full capability surface of the reference
-``lmmx/picard-ica`` Rust crate, re-designed TPU-first:
+``lmmx/picard-ica`` Rust crate, re-designed for an accelerator:
 
   * a single jitted ``lax.while_loop`` optimizer with fixed-shape
     L-BFGS state,
   * sample-sharded data over a ``jax.sharding.Mesh`` with psum moment
-    reductions (multi-chip / multi-host via ``parallel``),
-  * fused Pallas kernels for the hot N x T passes on TPU,
+    reductions (multi-device / multi-host via ``parallel``),
+  * a fused Triton kernel for the hot N x T pass on the GPU,
   * tanh/exp/cube densities, extended sub/super-Gaussian mode,
     PCA whitening, JADE and FastICA warm starts.
 
@@ -29,7 +29,6 @@ Example::
 
 from .config import ConfigBuilder, PicardConfig
 from .errors import (
-    AccuracyWarning,
     ComputationError,
     InvalidConfigError,
     InvalidDimensionsError,
@@ -57,7 +56,6 @@ __all__ = [
     "SingularMatrixError",
     "ComputationError",
     "InvalidConfigError",
-    "AccuracyWarning",
     "Density",
     "DensityType",
     "Tanh",

@@ -2,10 +2,10 @@
 
 Field names, defaults, and validation rules mirror the reference
 (src/config.rs:11-142); the fluent :class:`ConfigBuilder` mirrors
-config.rs:147-273. One TPU-native addition: ``dtype`` selects the
-on-device compute precision (float32 on TPU by default; float64 is
-available on CPU when ``jax_enable_x64`` is on, used for conformance
-testing against the f64 reference).
+config.rs:147-273. Additions: ``dtype`` selects the on-device compute
+precision (float32 by default; float64 when ``jax_enable_x64`` is on,
+used for conformance testing against the f64 reference), and the
+fields marked "Extension" below.
 """
 
 from __future__ import annotations
@@ -40,24 +40,25 @@ class PicardConfig:
     jade_it: Optional[int] = None
     random_state: Optional[int] = None
     verbose: bool = False
-    # TPU-native extension: compute dtype (None = infer from input /
-    # platform; see solver._resolve_dtype).
+    # Extension: compute dtype (None = infer from the input; see
+    # solver._resolve_dtype).
     dtype: Optional[Any] = None
-    # TPU-native extension: use the fused Pallas data-axis kernels.
-    # None = auto (on when running on TPU).
+    # Extension: use the fused Triton data-pass kernel
+    # (ops/pallas_kernels.py). None = auto (on for f32 fits with
+    # N <= 64 on the GPU; see solver._kernel_route).
     use_pallas: Optional[bool] = None
     # Escalate non-convergence to NotConvergedError instead of the
     # reference's warn-and-return (solver.rs:171-177 semantics stay the
     # default; see errors.NotConvergedError).
     raise_on_no_convergence: bool = False
-    # TPU-native extension: MXU precision of the fused hot-loop kernel.
-    # "auto" (default) = staged schedule: 1-pass bf16 -> split-bf16
-    # 3-pass -> exact-f32 6-pass, each tier down to a safe multiple of
-    # its gradient-noise floor (models/core._precision_stages); "f32"
-    # pins the exact 6-pass dots throughout; "bf16x3"/"bf16" pin a
-    # single faster tier (their floors cap reachable tolerance).
+    # Extension: matmul precision of the hot data pass
+    # (ops/precision.py). "auto" (default) = staged schedule: bf16 ->
+    # bf16x3 -> exact f32, each tier down to a safe multiple of its
+    # gradient-noise floor (models/core._precision_stages); "f32" pins
+    # exact f32 dots throughout; "bf16x3"/"bf16" pin a single faster
+    # tier (their floors cap reachable tolerance).
     kernel_precision: str = "auto"
-    # TPU-native extension: where the one-time center+whiten pass runs.
+    # Extension: where the one-time center+whiten pass runs.
     # "auto" (default): f64 NumPy inputs of moderate size (N*T <= 2e8)
     # are preprocessed on the HOST in f64 — the whitening basis then
     # matches an all-f64 pipeline (the Rust reference / native oracle)

@@ -57,14 +57,6 @@ class ComputationError(PicardError):
         super().__init__(f"Computation error: {message}")
 
 
-class AccuracyWarning(UserWarning):
-    """A silent-precision fallback was taken (no reference counterpart:
-    the reference is all-f64 CPU, error.rs has no analogue). Raised-as-
-    warning when e.g. the TPU covariance for N > 512 exceeds the Pallas
-    chunked kernel's VMEM limit and falls back to a single f32 dot with
-    ~sqrt(T)*eps accumulation error (ops/whitening.py)."""
-
-
 class InvalidConfigError(PicardError):
     """Invalid configuration parameter (reference: error.rs:36-41)."""
 

@@ -1,12 +1,12 @@
 """JADE (Joint Approximate Diagonalization of Eigenmatrices) warm start.
 
-Same math as the reference (src/jade.rs) re-architected for TPU:
+Same math as the reference (src/jade.rs) re-architected for an accelerator:
 
   * The reference builds the 4th-order cumulant matrices with an
     O(N^4 T) scalar loop nest over an N^2 x T intermediate
     (jade.rs:91-120). Here the whole Gram of pair products
     ``Q[(i,j),(k,l)] = E[x_i x_j x_k x_l]`` is ONE (N^2, chunk) x
-    (chunk, N^2) matmul accumulated over T chunks on the MXU; the
+    (chunk, N^2) matmul accumulated over T chunks; the
     delta corrections for whitened data (jade.rs:114-120) are sparse
     scatter updates rather than materialized N^4 delta tensors.
   * The reference recomputes each Givens angle from the *original*
@@ -16,9 +16,9 @@ Same math as the reference (src/jade.rs) re-architected for TPU:
     verified in tests against a direct recompute.
   * The reference sweeps pairs sequentially in lexicographic order
     (jade.rs:44-52); here a sweep is N-1 round-robin steps of N/2
-    DISJOINT planes rotated together as one batched MXU conjugation
+    DISJOINT planes rotated together as one batched conjugation
     (see _jacobi_sweeps for why the sequential order is untenable on
-    TPU at N >= 64).
+    an accelerator at N >= 64).
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import numpy as np
 from jax import lax
 
 from ..ops.linalg import sym_decorrelation_with_mineig
-from .core import _callbacks_supported
 
 _ANGLE_EPS = 1e-15  # jade.rs:175
 
@@ -81,8 +80,8 @@ def _pair_product_gram(x, chunk_size: int):
     """Gram of pair products ``sum_t (x_i x_j)_t (x_k x_l)_t``, but
     only the P = N(N+1)/2 rows with i <= j (row (i,j) equals row
     (j,i)): shape (P, N^2), accumulated over T chunks so the
-    N^2 x chunk intermediate stays VMEM/HBM-friendly. The left factor
-    being the half-pair slice halves the dominant T*N^4 MXU work, the
+    N^2 x chunk intermediate stays small. The left factor
+    being the half-pair slice halves the dominant T*N^4 matmul work, the
     accumulated carry, and the sharded path's psum payload vs the full
     (N^2, N^2) Gram the consumer would discard half of."""
     n, t = x.shape
@@ -164,13 +163,13 @@ def _jacobi_sweeps(cumulants, n: int, max_iter: int, tol, verbose: bool):
     """Joint diagonalization by parallel-order Jacobi sweeps.
 
     Same objective and Givens-angle formula as the reference
-    (jade.rs:137-185), re-ordered for TPU: instead of the reference's
-    N(N-1)/2 *sequential* per-pair rotations per sweep — which on TPU
-    degenerates into ~12 tiny gather/scatter ops per pair and is
-    dispatch-bound (and watchdog-killed at N >= 64) — each sweep is
+    (jade.rs:137-185), re-ordered for an accelerator: instead of the
+    reference's N(N-1)/2 *sequential* per-pair rotations per sweep —
+    which degenerates into ~12 tiny gather/scatter ops per pair and is
+    dispatch-bound at N >= 64 — each sweep is
     N-1 round-robin steps that rotate N/2 DISJOINT pairs at once.
     Disjoint-plane rotations commute, so each step is one orthogonal
-    block-rotation matrix G and the update is two batched MXU matmuls:
+    block-rotation matrix G and the update is two batched matmuls:
     R <- G^T R G over all P cumulant matrices, V <- V G. Cyclic and
     parallel pair orders share the Jacobi convergence guarantee; they
     differ only in trajectory (the warm start's output feeds Picard
@@ -246,7 +245,7 @@ def _jacobi_sweeps(cumulants, n: int, max_iter: int, tol, verbose: bool):
         v, r, max_theta = lax.fori_loop(
             0, n_rounds, round_body, (v, r, jnp.asarray(0.0, dtype))
         )
-        if verbose and _callbacks_supported():
+        if verbose:
             jax.debug.print(
                 "JADE iteration {it}: max angle = {mt:.4e}", it=sweep + 1, mt=max_theta
             )
@@ -272,7 +271,7 @@ def jade(x, max_iter: int, tol: float = 1e-6, verbose: bool = False,
         return jnp.eye(n, dtype=x.dtype), jnp.asarray(1.0, x.dtype)
 
     cumulants = compute_cumulant_matrices(x, data_sharding=data_sharding)
-    if verbose and _callbacks_supported():
+    if verbose:
         jax.debug.print(
             "JADE: {k} cumulant matrices computed", k=cumulants.shape[0]
         )

@@ -8,7 +8,7 @@ Two pieces live here (see ``src/``):
   vectorized-NumPy fallback but ~50x faster at 64M samples.
 * ``oracle.cpp`` — an independent f64 CPU implementation of the full
   Picard algorithm (whiten + core loop + FastICA warm start) used as
-  the conformance ground truth the TPU solver is validated against
+  the conformance ground truth the device solver is validated against
   (BASELINE.md: Amari < 1e-3 vs the reference on all bench mixtures).
 
 The library is compiled on first use with g++ (no pip/apt needed) and

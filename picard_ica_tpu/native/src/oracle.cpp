@@ -5,7 +5,7 @@
 // whitening.rs:24-110, lbfgs.rs:84-171, density.rs, math.rs), written
 // from the algorithm specification in SURVEY.md. Its role mirrors the
 // Rust reference's: a sequential double-precision CPU ground truth the
-// TPU (f32, fused-kernel, sharded) solver is validated against —
+// device (f32, fused-kernel, sharded) solver is validated against —
 // BASELINE.md demands Amari distance < 1e-3 vs the reference on all
 // bench mixtures, and the Rust toolchain is not present in this image,
 // so conformance runs go through this oracle instead.

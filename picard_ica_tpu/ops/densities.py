@@ -1,10 +1,10 @@
 """Density (nonlinearity) plugins for ICA.
 
-TPU-first design: each density is a small frozen dataclass whose
-methods are pure ``jnp`` elementwise functions. Because instances are
-hashable and compared by value, a density can be passed as a *static*
-argument to ``jax.jit`` — dispatch happens at trace time and the
-elementwise math fuses freely into surrounding XLA/Pallas kernels.
+Each density is a small frozen dataclass whose methods are pure
+``jnp`` elementwise functions. Because instances are hashable and
+compared by value, a density can be passed as a *static* argument to
+``jax.jit`` — dispatch happens at trace time and the elementwise math
+fuses freely into surrounding XLA fusions and the Triton kernel.
 
 Behavioral parity with the reference (src/density.rs):
   * Tanh — log-lik ``|y| + log(1 + exp(-2a|y|))/a`` (density.rs:50-56),
@@ -22,44 +22,6 @@ import dataclasses
 from typing import Protocol, Tuple, runtime_checkable
 
 import jax.numpy as jnp
-
-# f32 delta forms use a native tanh instead of the exp-based identity
-# (saves two of three exps per element in the VPU-bound fused kernel).
-# Flag exists so the exact f64-form math remains selectable if a Mosaic
-# build without a tanh lowering turns up; f64 always uses the exact
-# form regardless (oracle-lockstep surface).
-_TANH_NATIVE_DELTA = True
-
-
-def _expm1(t):
-    """``exp(t) - 1`` usable inside Pallas TPU kernels.
-
-    Mosaic has no lowering for the expm1 primitive, and a plain
-    ``exp(t) - 1`` loses all relative accuracy for the tiny |t| the
-    line-search delta produces near convergence. For f32, an 8-term
-    Horner Taylor below |t| < 0.5 keeps relative error ~1e-8
-    (f32-grade); above that threshold the direct form is safe. f64
-    (CPU conformance) keeps the exact primitive.
-    """
-    if t.dtype == jnp.float64:
-        return jnp.expm1(t)
-    return jnp.where(jnp.abs(t) < 0.5, _expm1_poly(t), jnp.exp(t) - 1.0)
-
-
-def _expm1_poly(t):
-    """``expm1`` Horner polynomial, valid ONLY for |t| <= 0.5.
-
-    The fused delta forms call this on a pre-clipped argument whose
-    out-of-range lanes are discarded by their own outer ``where`` —
-    using the bare polynomial there skips a dead ``exp`` the full
-    ``_expm1``'s fallback branch would still execute per element (the
-    fused kernel is VPU-bound, so dead transcendentals are real time).
-    """
-    if t.dtype == jnp.float64:
-        return jnp.expm1(t)
-    return t * (1.0 + t * (1.0 / 2 + t * (1.0 / 6 + t * (1.0 / 24 + t * (
-        1.0 / 120 + t * (1.0 / 720 + t * (1.0 / 5040 + t * (1.0 / 40320))))))))
-
 
 @runtime_checkable
 class Density(Protocol):
@@ -91,7 +53,7 @@ class Density(Protocol):
     def score_der_loglik_delta(self, y_old, dy) -> Tuple:
         """Return ``(score(y_new), score_der(y_new), log_lik_delta)``
         with y_new = y_old + dy, sharing transcendental subexpressions
-        — THE method the fused hot-loop kernel calls (one pass gives
+        — THE method the fused hot-loop pass calls (one pass gives
         the accept test's loss delta and the candidate's score terms).
         """
         ...
@@ -99,7 +61,7 @@ class Density(Protocol):
     def score_der_loglik(self, y) -> Tuple:
         """Return ``(score, score_der, log_lik)`` of ``y`` with shared
         transcendentals — the PLAIN (absolute) variant of the fused
-        pass: about half the VPU work of the delta form and one fewer
+        pass: about half the elementwise work of the delta form and one fewer
         rotation dot, usable while the loss resolution of a direct
         f32 subtraction (~1e-4 absolute) still exceeds the per-step
         decreases (the cheap bf16 tier's whole working range).
@@ -113,9 +75,9 @@ class Tanh:
 
     alpha: float = 1.0
 
-    # Staged-precision handoff thresholds (~2.5x the measured gradient
-    # noise floor of each cheap MXU tier on TPU v5e at N=64/T=1M:
-    # bf16 ~1.1e-4, bf16x3 ~1.5e-7; see models/core._precision_stages).
+    # Staged-precision handoff thresholds (~2.5x the gradient noise
+    # floor of each cheap tier, bf16 ~1.1e-4 and bf16x3 ~1.5e-7 at
+    # N=64/T=1M; see models/core._precision_stages).
     bf16_handoff = 3e-4
     bf16x3_handoff = 4e-7
 
@@ -159,7 +121,7 @@ class Tanh:
         t = -2.0 * a * d_abs
         small = jnp.abs(t) < 0.5
 
-        if y_old.dtype == jnp.float64 or not _TANH_NATIVE_DELTA:
+        if y_old.dtype == jnp.float64:
             # f64 conformance surface: bit-for-bit the form the C++
             # oracle's lockstep tests were measured against.
             e_a = jnp.exp(-2.0 * a * abs_new)
@@ -168,11 +130,11 @@ class Tanh:
             score_der = a * (1.0 - t_th * t_th)
             num = jnp.where(
                 small,
-                e_b * _expm1(jnp.clip(t, -0.5, 0.5)),
+                e_b * jnp.expm1(jnp.clip(t, -0.5, 0.5)),
                 e_a - e_b,
             )
         else:
-            # f32 hot path: one native tanh replaces two exps.
+            # f32: one native tanh replaces two exps.
             #   score = tanh(a*y_new) (exact — no (1-e)/(1+e) algebra),
             #   e_a   = (1-|tanh|)/(1+|tanh|), needed ONLY in the
             #           large-|t| branch where dll is dominated by
@@ -187,7 +149,7 @@ class Tanh:
             e_a = (1.0 - abs_th) / (1.0 + abs_th)
             num = jnp.where(
                 small,
-                e_b * _expm1_poly(jnp.clip(t, -0.5, 0.5)),
+                e_b * jnp.expm1(jnp.clip(t, -0.5, 0.5)),
                 e_a - e_b,
             )
         dll = d_abs + jnp.log1p(num / (1.0 + e_b)) / a
@@ -254,7 +216,7 @@ class Exp:
         small = jnp.abs(q) < 0.5
         dll = jnp.where(
             small,
-            -k_b * _expm1_poly(jnp.clip(q, -0.5, 0.5)) / a,
+            -k_b * jnp.expm1(jnp.clip(q, -0.5, 0.5)) / a,
             (k_b - k_a) / a,
         )
         return score, score_der, dll

@@ -19,7 +19,7 @@ from jax import lax
 
 from ..errors import SingularMatrixError
 
-# N x N products run exact-f32-grade: a default (bf16 on TPU) pass in
+# N x N products run exact-f32-grade: a default (TF32 on the GPU) pass in
 # the line-search transform or the decorrelation costs ~4e-3 relative
 # error on state the loop treats as exact.
 _HI_PREC = jax.lax.Precision.HIGHEST
@@ -77,7 +77,7 @@ def matrix_exp(a):
     s = max(ceil(log2(max|A|)), 0), run <=30 Taylor terms with early
     exit at 1e-16, then square s times.
 
-    TPU shape: the Taylor recurrence and the first 16 squarings are
+    Accelerator shape: the Taylor recurrence and the first 16 squarings are
     UNROLLED with ``where`` masks instead of ``lax.while_loop``s — the
     matrices are tiny (N x N), so the sequential dependence of a while
     loop costs far more in per-step dispatch than the few masked spare
@@ -154,8 +154,8 @@ def expm_pow2_chain(d, n_alphas: int):
 
     Cost: 6 Taylor matmuls + (16 + n_alphas) chain matmuls ONCE per
     line search, vs ~50 masked matmuls PER TRY for independent
-    :func:`matrix_exp` calls — on TPU the expm chain is dispatch-bound
-    N x N work and dominated the per-try cost at N = 64 (~2 ms/try).
+    :func:`matrix_exp` calls — the expm chain is dispatch-bound N x N
+    work that would otherwise dominate the per-try cost at N = 64.
 
     Accuracy: the base input norm is <= 2^(1 - n_alphas), so 6 Taylor
     terms truncate below 1e-18 — truncation is NOT the limit. The
@@ -227,7 +227,7 @@ def mixing_pinv(w):
     Fills the role of ``PicardResult::mixing`` (result.rs:49-64). The
     reference forms the normal equations ``(W^T W)^{-1} W^T`` with a
     hand-rolled Gauss-Jordan inverse; that squares the condition number
-    and loses ~2 digits in TPU f32, so we use the SVD-based
+    and loses ~2 digits in f32, so we use the SVD-based
     ``jnp.linalg.pinv`` instead (same mathematical object), keeping the
     reference's transpose fallback for degenerate inputs (exact for
     orthogonal W).
@@ -237,8 +237,7 @@ def mixing_pinv(w):
 
 
 # Column-block width of the in-place row rotation: (N, 2^20) f32 blocks
-# are 256 MB at N=64 / 1 GB at N=256 — large enough that each block's
-# GEMM runs at full MXU utilization, small next to the (N, T) buffer.
+# are 256 MB at N=64 / 1 GB at N=256 — small next to the (N, T) buffer.
 ROTATE_BLOCK_T = 1 << 20
 
 

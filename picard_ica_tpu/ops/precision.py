@@ -1,22 +1,32 @@
-"""MXU precision tiers shared by the Pallas kernels and the XLA path.
+"""Matmul precision tiers shared by the fused kernel and the XLA path.
 
-A TPU matmul on f32 operands is built from bf16 MXU passes; the tiers
-here trade passes for mantissa bits (reference precision context:
-core.rs:211-276 runs every contraction at f64 — on TPU the equivalent
-accuracy/cost dial is the pass count):
+Each tier names one explicit dot algorithm, so that it means the same
+thing on every backend and inside the Triton kernel (reference
+precision context: core.rs:211-276 runs every contraction at f64):
 
-  * ``"bf16"``   — 1 pass (operands cast to bf16, f32 accumulation);
-  * ``"bf16x3"`` — 3 passes on hi/lo bf16 splits (~16 mantissa bits;
-    XLA's ``Precision.HIGH``, which Mosaic does not support natively);
-  * ``"f32"``    — ``Precision.HIGHEST`` (6 passes, exact f32).
+  * ``"bf16"``   — ``BF16_BF16_F32``: operands rounded to bf16 (8
+    mantissa bits), one tensor-core product, f32 accumulation;
+  * ``"bf16x3"`` — ``BF16_BF16_F32_X3``: each f32 operand split into a
+    bf16 hi and lo part, three tensor-core products (hi*hi + hi*lo +
+    lo*hi), ~16 mantissa bits;
+  * ``"f32"``    — ``Precision.HIGHEST``: IEEE f32 products outside
+    the tensor cores (the ``F32_F32_F32`` algorithm). Named by operand
+    precision rather than by algorithm because XLA's SPMD partitioner
+    keeps operand precision but drops the algorithm of a dot whose
+    non-contracting dimension is sharded — the sample-sharded rotation
+    ``W @ X`` — which on the GPU would turn the exact tier into TF32
+    and stall a sharded fit near gnorm 1e-5. (The bf16x3 algorithm is
+    dropped there the same way: a sharded bf16x3 stage rotates at
+    TF32, ROADMAP.)
 
-All tiers fall through to HIGHEST at f64 (the CPU conformance
-surface), where bf16 splitting would LOSE precision.
+All tiers fall through to ``Precision.HIGHEST`` at f64 (the conformance
+surface), where a bf16 split would LOSE precision. The XLA CPU backend
+computes the two bf16 algorithms in plain f32; the bf16 tier therefore
+also casts its operands, so that its rounding is the same everywhere.
 
-These functions are plain ``lax`` ops: inside a Pallas kernel they
-lower through Mosaic, outside they are ordinary XLA dots — one
-definition keeps the two compute paths' tier semantics identical
-(models/core._precision_stages runs the same staged schedule on both).
+``Precision.HIGH`` is deliberately not used: XLA:GPU runs it as TF32
+(10 mantissa bits), not as the three-pass split the middle tier's
+handoff threshold assumes.
 """
 
 from __future__ import annotations
@@ -25,105 +35,37 @@ import jax
 import jax.numpy as jnp
 
 _HI = jax.lax.Precision.HIGHEST
+_ALGO = jax.lax.DotAlgorithmPreset
 
 # Standard 2-D matmul dimension numbers for dot_general.
 _MM_DIMS = (((1,), (0,)), ((), ()))
 
-
-def _split_bf16(v):
-    """(hi, lo) bf16 halves of an f32 operand: hi = bf16(v),
-    lo = bf16(v - f32(hi)) — together ~16 mantissa bits."""
-    hi = v.astype(jnp.bfloat16)
-    lo = (v - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, lo
+TIER_ALGORITHMS = {
+    "bf16": _ALGO.BF16_BF16_F32,
+    "bf16x3": _ALGO.BF16_BF16_F32_X3,
+    "f32": _HI,
+}
 
 
-def _dot_bf16x3_presplit(a_pair, b_pair, dims, acc):
-    """The three bf16 MXU passes on already-split operands. Separated
-    from :func:`_dot_bf16x3` so a kernel that feeds the SAME operand to
-    several dots (the delta kernel's X tile enters both rotation dots)
-    can split it once — the split is VPU work inside a VPU-bound
-    kernel, and Mosaic is not guaranteed to CSE the duplicate."""
-    a_hi, a_lo = a_pair
-    b_hi, b_lo = b_pair
-
-    def d(p, q):
-        return jax.lax.dot_general(p, q, dims, preferred_element_type=jnp.float32)
-
-    return (d(a_hi, b_hi) + d(a_lo, b_hi) + d(a_hi, b_lo)).astype(acc)
-
-
-def _dot_bf16x3(a, b, dims, acc):
-    """3-pass bf16 dot_general (the bf16_6x/HIGHEST scheme minus the
-    negligible lo x lo term — XLA's ``Precision.HIGH``, which Mosaic
-    does not support natively).
-
-    Splits each f32 operand into hi + lo bf16 halves (~16 mantissa
-    bits) and runs three MXU passes with f32 accumulation; the dropped
-    lo*lo term is O(2^-32) relative. Falls through to a plain HIGHEST
-    dot for f64 (CPU conformance runs), where bf16 splitting would
-    LOSE precision.
-
-    This is the middle tier of the default "auto" staged schedule
-    (models/core._precision_stages). Measured gradient-norm floor with
-    the analytic line-search delta: ~1.5e-7 (tanh/exp; ~1.4e-6 for
-    cube) — an early measurement of ~3e-6 predated the delta form,
-    whose cancellation, not this dot, was the limiter.
-    """
+def tier_dot(a, b, dims, acc, precision: str):
+    """``dot_general(a, b, dims)`` at the requested precision tier,
+    returned in ``acc`` (f32 for f32 and bf16 inputs, f64 at f64)."""
     if acc == jnp.float64:
         return jax.lax.dot_general(a, b, dims, preferred_element_type=acc,
                                    precision=_HI)
-    return _dot_bf16x3_presplit(_split_bf16(a), _split_bf16(b), dims, acc)
-
-
-def _kernel_dot(a, b, dims, acc, precision: str):
-    """dot_general at the requested MXU precision tier.
-
-    Measured device time at the hot Pallas shapes (N=64, bt=4096, 244
-    tiles, rotate + contraction): "f32" (HIGHEST, 6-pass) 1.03 ms,
-    "bf16x3" 0.54 ms, "bf16" (1-pass, at the HBM floor) 0.34 ms.
-    Gradient-norm floors (with the analytic line-search delta):
-    f32 < 1e-8, bf16x3 ~1.5e-7, bf16 ~1.2e-4 — the staged schedule in
-    models/core.py uses each tier down to a safe multiple of its
-    floor. All tiers fall through to HIGHEST at f64 (CPU conformance),
-    where bf16 splitting would LOSE precision.
-    """
-    if acc != jnp.float64:
-        if precision == "bf16x3":
-            return _dot_bf16x3(a, b, dims, acc)
-        if precision == "bf16":
-            return jax.lax.dot_general(
-                a.astype(jnp.bfloat16), b.astype(jnp.bfloat16), dims,
-                preferred_element_type=jnp.float32,
-            ).astype(acc)
-    return jax.lax.dot_general(a, b, dims, preferred_element_type=acc,
-                               precision=_HI)
+    if precision == "bf16":
+        a = a.astype(jnp.bfloat16)
+        b = b.astype(jnp.bfloat16)
+    else:
+        a = a.astype(jnp.float32)
+        b = b.astype(jnp.float32)
+    return jax.lax.dot_general(
+        a, b, dims, precision=TIER_ALGORITHMS[precision],
+        preferred_element_type=jnp.float32,
+    ).astype(acc)
 
 
 def matmul_tiered(a, b, acc, precision: str):
     """2-D ``a @ b`` at the requested tier — the XLA data path's hot
-    dot (models/core.data_fused_step).
-
-    The bf16x3 tier maps to XLA's native ``Precision.HIGH`` here
-    instead of the manual hi/lo split: outside Pallas the split
-    MATERIALIZES two bf16 copies of each (N, T) operand in HBM, and
-    the measured cost inverts the tier ladder (N=384 x 1M delta:
-    manual split 51.0 ms/call vs HIGHEST's 33.7 — the extra ~3 GB of
-    split traffic swamps the 3-vs-6-pass MXU saving; chip rows in
-    benchmarks/xla_staged_r5.json). ``Precision.HIGH`` is the same
-    3-pass hi/lo arithmetic executed inside the MXU pipeline with no
-    materialization (19.9 ms/call — 1.7x vs HIGHEST). Inside Pallas
-    kernels the manual `_dot_bf16x3` stays: Mosaic does not support
-    ``Precision.HIGH``, and there the split is VPU work on a VMEM
-    tile, not HBM traffic. On CPU backends ``HIGH`` computes exact
-    f32 — the XLA mid tier is cleaner there than on chip, which only
-    strengthens the handoff (trajectory-level conformance is pinned
-    by the f64 single-stage path, not by cross-backend tier ULPs).
-
-    The bf16 tier keeps the explicit cast (same numerics everywhere;
-    XLA fuses the converts into the dot's operand reads — measured at
-    the HBM-side cost of a plain dot, no copy blowup)."""
-    if acc != jnp.float64 and precision == "bf16x3":
-        return jax.lax.dot_general(a, b, _MM_DIMS, preferred_element_type=acc,
-                                   precision=jax.lax.Precision.HIGH)
-    return _kernel_dot(a, b, _MM_DIMS, acc, precision)
+    dot (models/core.data_fused_step)."""
+    return tier_dot(a, b, _MM_DIMS, acc, precision)

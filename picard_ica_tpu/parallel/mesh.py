@@ -1,9 +1,10 @@
 """Device mesh construction and multi-host initialization.
 
 The reference has no distributed layer at all (SURVEY.md §2.3); this is
-the TPU-native equivalent. Picard ICA has exactly one shardable axis —
-the i.i.d. samples axis — so the canonical mesh is 1-D over every chip
-of a pod slice, with all N x N optimizer state replicated.
+its equivalent here. Picard ICA has exactly one shardable axis — the
+i.i.d. samples axis — so the canonical mesh is 1-D over every device
+(the cards of a host are joined all to all, so no device order is
+preferred), with all N x N optimizer state replicated.
 """
 
 from __future__ import annotations
@@ -20,9 +21,8 @@ SAMPLE_AXIS = "samples"
 def distributed_init(**kwargs) -> None:
     """Initialize the multi-host JAX runtime (idempotent wrapper).
 
-    Call once per process on a multi-host pod slice before building a
-    mesh; collectives then ride ICI within a slice and DCN across
-    hosts. No-op if already initialized or single-process.
+    Call once per process on a multi-host run before building a mesh.
+    No-op if already initialized or single-process.
     """
     try:
         jax.distributed.initialize(**kwargs)

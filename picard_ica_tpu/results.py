@@ -33,8 +33,7 @@ class PicardResult:
     # Sub/super-Gaussian signs per component; None unless extended mode.
     signs: Optional[jnp.ndarray]
     # --- observability extensions (reference: verbose prints only,
-    # core.rs:383-390; here the diagnostics ride the result because
-    # in-jit printing is unavailable on some TPU runtimes) ---
+    # core.rs:383-390; here the diagnostics also ride the result) ---
     # Iteration number at which each precision stage exited (one entry
     # per stage of models/core._precision_stages; a single entry for
     # pinned precisions / the XLA path).
@@ -55,7 +54,7 @@ class PicardResult:
     def full_unmixing(self) -> jnp.ndarray:
         """``W @ K`` when whitened, else ``W`` (result.rs:39-44).
 
-        HIGHEST precision: the default TPU matmul (bf16) would add
+        HIGHEST precision: the default GPU matmul (TF32) would add
         ~1e-3 relative noise to the composed unmixing — larger than
         the solver's own error by orders of magnitude.
         """

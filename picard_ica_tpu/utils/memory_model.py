@@ -1,52 +1,51 @@
-"""Single-chip HBM peak model for a full bench/fit pipeline.
+"""Single-device memory peak model for a full bench/fit pipeline.
 
-Round 4 chip-probed the 256xT max-T progression (docs/BENCHMARKS.md,
-benchmarks/suite.py baseline_5 max-T row) but encoded the buffer
-anatomy only in prose; this module turns it into arithmetic a test can
-pin, so buffer-structure changes can't silently regress max-T
-(VERDICT r4 item 7).
+Turns the pipeline's buffer anatomy into arithmetic a test can pin, so
+a buffer-structure change that would lower the largest T one device
+can fit shows up as a failing test instead of an out-of-memory error.
 
-Phase anatomy (f32 data, all chip-verified in round 4's probes;
-``nf`` = n_features of the raw data, ``n`` = n_components, usually
-equal on the bench path):
+Phase anatomy (f32 data; ``nf`` = n_features of the raw data, ``n`` =
+n_components, usually equal on the bench path):
 
   datagen     1 data buffer — sources are mixed IN PLACE via the
               blockwise aliased rotation (utils/datagen.py:_gen).
   stats       x + the chunked covariance partials (pairwise fold,
-              ~n_chunks * nf^2 — KB-scale).
+              ~n_chunks * nf^2 — KB-scale). As XLA:GPU compiles it,
+              this phase also materializes the centered copy and the
+              padded chunk transpose, which this model does not count
+              yet (PERF.md: measured peaks run above the model).
   projection  x (nf, T) + x1 (n, T): the whitened copy materializes
               while the raw data is still alive — THE binding phase
               at 2 full data buffers (ops/whitening._project_centered).
   refine      x1 rotated in place + one rotation block
               (ops/linalg.rotate_rows_inplace_blocks).
-  core        x1 donated (aliased onto the final Y) + the staged
-              schedule's bf16 X copy (half a buffer, models/core.py)
-              + the grouped moment partials (ops/pallas_kernels).
+  core        x1 donated (aliased onto the final Y) + either the
+              kernel path's bf16 X copy for the staged schedule's
+              first tier (half a buffer, models/core.py; the kernel's
+              per-program partials are a few MB) or the XLA path's
+              rotated-Y materialization (one buffer).
 
-Arena calibration: the v5e chip exposes a ~15.75 GB XLA arena, but the
-usable ceiling for THIS pipeline is lower (program temporaries,
-launch-time padding, allocator granularity). Round-4 chip
-measurements bracket it: 256x6M (projection peak 12.29e9) fits in a
-fresh process; 256x7M (14.34e9) does not ("past the arena's
-comfort", benchmarks/suite.py). EFFECTIVE_ARENA_BYTES sits mid-
-bracket; the bracket itself — not the midpoint — is the measured
-fact, and :func:`max_t` reproduces the 6M-fits/7M-OOMs boundary for
-any value inside it. Round 5 confirmed the model's 6M prediction END
-TO END: the full datagen->whiten->fit pipeline at 256x6M runs in a
-fresh process (4.94e7 samples/s, benchmarks/maxt_row.py — the
-committed suite row was previously 4M only because the in-process
-ladder ran on a fragmented arena).
+The arena is what the allocator may hand out on the device
+(``memory_stats()["bytes_limit"]``): the model predicts, the device
+decides. chip_smoke.py prints both beside the measured peak.
 """
 
 from __future__ import annotations
 
 _ELEM = 4  # f32 bytes; the device pipeline is f32 end to end
 
-# Chip-measured usable ceiling (see module docstring): bracketed by
-# 12.29e9 (fits) and 14.34e9 (OOMs) at 256xT, round 4.
-EFFECTIVE_ARENA_BYTES = 13.3e9
-# The raw arena the runtime reports (context for the gap).
-REPORTED_ARENA_BYTES = 15.75e9
+
+def device_arena_bytes(device=None) -> int:
+    """The allocator limit of ``device`` (default: the first device)."""
+    import jax
+
+    device = device if device is not None else jax.devices()[0]
+    stats = device.memory_stats() or {}
+    if "bytes_limit" not in stats:
+        raise RuntimeError(
+            f"{device.device_kind} reports no bytes_limit; pass arena_bytes"
+        )
+    return int(stats["bytes_limit"])
 
 
 def phase_peak_bytes(
@@ -56,13 +55,14 @@ def phase_peak_bytes(
     cheap_tier: bool = True,
     use_pallas: bool = True,
 ) -> dict:
-    """Per-phase HBM peaks (bytes) for a datagen→whiten→fit pipeline.
+    """Per-phase device-memory peaks (bytes) for a
+    datagen→whiten→fit pipeline.
 
-    ``cheap_tier``: the staged-precision schedule keeps a bf16 copy of
-    X during its first tier (half a data buffer). ``use_pallas``: the
-    fused kernels' grouped moment partials; the XLA path's moment
-    temporaries are transient and fusion-managed instead (modeled at
-    one extra data buffer for the rotated-Y materialization).
+    ``cheap_tier``: the staged-precision schedule's first tier keeps a
+    bf16 copy of X on the kernel path. ``use_pallas``: the fused kernel
+    path; the XLA path's moment temporaries are fusion-managed instead
+    (modeled at one extra data buffer for the rotated-Y
+    materialization).
     """
     nf = n_features if n_features is not None else n
     data = nf * t * _ELEM      # raw (n_features, T) buffer
@@ -73,28 +73,21 @@ def phase_peak_bytes(
     block = n * min(ROTATE_BLOCK_T, t) * _ELEM
 
     if use_pallas:
-        from ..ops import pallas_kernels as pk
-
-        bt = pk._tile_t(n, t)
-        n_tiles = -(-t // bt)
-        group = pk._partials_group(n_tiles, n, 2)
-        n_groups = -(-n_tiles // group)
-        # G + H (n, n) partials plus pm/ysq (n, 1) per group
-        core_extra = n_groups * (2 * n * n + 2 * n) * _ELEM
+        core_extra = comp // 2 if cheap_tier else 0
     else:
-        core_extra = comp  # XLA path: one rotated-Y materialization
+        core_extra = comp
 
     return {
         "datagen": data + block,                 # in-place mix + block
         "stats": data + 64 * nf * nf * _ELEM,    # chunked cov partials
         "projection": data + comp,               # raw + whitened alive
         "refine": comp + block,                  # in-place re-rotation
-        "core": comp + (comp // 2 if cheap_tier else 0) + core_extra,
+        "core": comp + core_extra,
     }
 
 
 def fit_peak_bytes(n: int, t: int, **kw) -> int:
-    """Pipeline HBM peak: the max over phase peaks."""
+    """Pipeline peak: the max over phase peaks."""
     return max(phase_peak_bytes(n, t, **kw).values())
 
 
@@ -106,15 +99,14 @@ def binding_phase(n: int, t: int, **kw) -> str:
 
 def max_t(
     n: int,
-    arena_bytes: float = EFFECTIVE_ARENA_BYTES,
+    arena_bytes: float | None = None,
     step: int = 1_000_000,
     **kw,
 ) -> int:
-    """Largest T (multiple of ``step``) whose pipeline peak fits.
-
-    Defaults reproduce the round-4 chip measurement: max_t(256) = 6M
-    (7M OOMs) — pinned by tests/test_memory_model.py.
-    """
+    """Largest T (multiple of ``step``) whose pipeline peak fits in
+    ``arena_bytes`` (default: the first device's allocator limit)."""
+    if arena_bytes is None:
+        arena_bytes = device_arena_bytes()
     t = step
     while fit_peak_bytes(n, t + step, **kw) <= arena_bytes:
         t += step

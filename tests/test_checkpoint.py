@@ -33,8 +33,8 @@ def test_round_trip(tmp_path, fitted):
 
 
 def test_round_trip_preserves_every_field(tmp_path, fitted):
-    """load_result == original on EVERY PicardResult field (VERDICT r4
-    item 5: the diagnostics are part of the result contract,
+    """load_result == original on EVERY PicardResult field (the
+    diagnostics are part of the result contract,
     result.rs:7-33, and a round trip must not silently drop them)."""
     import dataclasses
 

@@ -35,7 +35,7 @@ def test_lcg_laplace_matches_python_reference_stream():
     got, state_c = native.lcg_laplace(42, 4096)
     assert state_c == state_py
     # libm vs numpy log differ by <=1 ulp; identical after the f32 cast
-    # the TPU path consumes.
+    # the device path consumes.
     np.testing.assert_array_equal(
         expected.astype(np.float32), got.astype(np.float32)
     )
@@ -208,7 +208,7 @@ def test_oracle_core_agrees_on_mixed_kurtosis(ortho):
 ])
 def test_oracle_core_agrees_with_jax_exp_cube(density_name, density_obj):
     """Exp/Cube get the same f64 oracle-lockstep guarantee as Tanh
-    (VERDICT r1 gap: the reference treats all three densities equally,
+    (the reference treats all three densities equally,
     density.rs:85-130)."""
     from picard_ica_tpu.ops.densities import Cube, Exp
 
@@ -247,8 +247,7 @@ def test_oracle_core_agrees_with_jax_exp_cube(density_name, density_obj):
 
 @pytest.mark.parametrize("fixture", ["plain", "mixed_extended"])
 def test_oracle_nonortho_per_iteration_trace_lockstep(fixture):
-    """Per-iteration trace comparison for the NON-ortho paths (VERDICT
-    r2 weak #7): the <=8-iteration-count fork allowed by the fixed-point
+    """Per-iteration trace comparison for the NON-ortho paths: the <=8-iteration-count fork allowed by the fixed-point
     tests above is trajectory slack near convergence, not algorithmic
     divergence — here the two independent f64 implementations are shown
     to track each other ITERATION BY ITERATION from the start.

@@ -136,7 +136,7 @@ def test_nonortho_fastica_sharded_matches_unsharded(eight_device_mesh):
     """Non-ortho under the mesh: the sharded H moment psi'(Y)·(Y²)ᵀ/T
     (core.rs:274) + regularize_hessian, with a FastICA warm start
     (solver.rs:218's moment psum) — the SURVEY §2.3 rows the flagship
-    ortho config never exercises (VERDICT r4 item 4)."""
+    ortho config never exercises."""
     x = _variant_data("laplace", 4, 4000, 5)
     cfg = PicardConfig(random_state=0, ortho=False, extended=True,
                        fastica_it=2, tol=1e-6, max_iter=200)

@@ -1,7 +1,8 @@
-"""Fit-level roofline columns (benchmarks/suite._roofline_fracs).
+"""Fit-level roofline columns (benchmarks/suite._roofline_fracs), the
+peak table they divide by (benchmarks/roofline.py), and the cold-check
+forensics parser.
 
-VERDICT r2 item 4 asked for an MFU/roofline column on fit-level rows;
-these tests pin the GEMM-pass accounting so a schedule or kernel
+These tests pin the GEMM-product accounting so a schedule or kernel
 change that invalidates the model shows up as a test failure, not a
 silently wrong committed fraction.
 """
@@ -9,14 +10,13 @@ silently wrong committed fraction.
 import numpy as np
 import pytest
 
-import jax
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 @pytest.fixture()
-def suite(monkeypatch):
+def suite():
     import benchmarks.suite as suite_mod
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     return suite_mod
 
 
@@ -36,48 +36,70 @@ def _opts(suite, **kw):
 
 
 def test_roofline_fracs_known_value(suite):
-    """Hand-computed: ortho pallas auto-schedule, cumulative ls calls
+    """Hand-computed: ortho kernel auto-schedule, cumulative ls calls
     [10, 14, 15] -> per-stage [10, 4, 1]; bf16 stage is plain (2 GEMMs,
-    1 bf16 pass), bf16x3 delta (3 GEMMs, 3 passes), final f32 delta
-    (3 GEMMs, 6 passes)."""
-    from benchmarks.roofline import HBM_BYTES_PER_S, PEAK_BF16
+    1 bf16 product), bf16x3 delta (3 GEMMs, 3 bf16 products), final
+    f32 delta (3 GEMMs at the f32 rate)."""
+    from benchmarks.roofline import PEAKS
 
+    peak = PEAKS[H100]
     n, t = 64, 1_000_000
-    rec = {"wall_s": 0.01, "device_s": None}
+    rec = {"wall_s": 0.01}
     opts = _opts(suite)
-    suite._roofline_fracs(rec, _Res([10, 14, 15]), opts, n, t)
+    suite._roofline_fracs(rec, _Res([10, 14, 15]), opts, n, t, device_kind=H100)
 
     gemm = 2.0 * n * n * t
-    flops = 10 * 2 * gemm * 1 + 4 * 3 * gemm * 3 + 1 * 3 * gemm * 6
-    xbytes = 10 * 2.0 * n * t + (4 + 1) * 4.0 * n * t
-    assert rec["mxu_frac_of_bf16_peak"] == pytest.approx(
-        flops / 0.01 / PEAK_BF16)
-    assert rec["hbm_frac_of_peak"] == pytest.approx(
-        xbytes / 0.01 / HBM_BYTES_PER_S)
+    compute = ((10 * 2 * gemm + 4 * 3 * gemm * 3) / peak["bf16_flops"]
+               + 1 * 3 * gemm / peak["f32_flops"])
+    memory = (10 * 2.0 * n * t + (4 + 1) * 4.0 * n * t) / peak["hbm_bytes_per_s"]
+    assert rec["roofline_compute_s"] == pytest.approx(compute)
+    assert rec["roofline_memory_s"] == pytest.approx(memory)
+    assert rec["roofline_share"] == pytest.approx(max(compute, memory) / 0.01)
+    assert rec["roofline_bound"] == ("compute" if compute >= memory else "memory")
 
 
-def test_roofline_fracs_prefers_device_time(suite):
-    rec = {"wall_s": 1.0, "device_s": 0.5}
+def test_roofline_share_scales_with_wall_time(suite):
+    rec = {"wall_s": 0.5}
     suite._roofline_fracs(rec, _Res([4]), _opts(
-        suite, kernel_precision="f32"), 32, 100_000)
+        suite, kernel_precision="f32"), 32, 100_000, device_kind=H100)
     rec2 = {"wall_s": 1.0}
     suite._roofline_fracs(rec2, _Res([4]), _opts(
-        suite, kernel_precision="f32"), 32, 100_000)
-    assert rec["mxu_frac_of_bf16_peak"] == pytest.approx(
-        2 * rec2["mxu_frac_of_bf16_peak"])
+        suite, kernel_precision="f32"), 32, 100_000, device_kind=H100)
+    assert rec["roofline_share"] == pytest.approx(2 * rec2["roofline_share"])
 
 
-def test_roofline_fracs_skips_cpu_backend(suite, monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+def test_roofline_fracs_skips_cpu_backend(suite):
+    """A CPU time divided by a card's peak is no device metric: without
+    a GPU no roofline column is written."""
     rec = {"wall_s": 0.01}
     suite._roofline_fracs(rec, _Res([10, 14, 15]), _opts(suite), 64, 10_000)
-    assert "mxu_frac_of_bf16_peak" not in rec
+    assert "roofline_share" not in rec
+
+
+def test_peak_table_has_the_h100_data_sheet_rates():
+    from benchmarks.roofline import peaks
+
+    p = peaks(H100)
+    assert (p["bf16_flops"], p["tf32_flops"], p["f32_flops"]) == (
+        989e12, 495e12, 67e12)
+    assert p["hbm_bytes_per_s"] == 3.35e12
+    assert "data sheet" in p["source"]
+
+
+def test_peak_table_unknown_device_is_an_error(suite):
+    from benchmarks.roofline import peaks
+
+    with pytest.raises(KeyError, match="no published peaks"):
+        peaks("Example Card 9000")
+    with pytest.raises(KeyError):
+        suite._roofline_fracs({"wall_s": 1.0}, _Res([4]), _opts(suite),
+                              32, 100_000, device_kind="unknown card")
 
 
 _COLD_STDERR = """\
 [bench +    0.0s] enabling persistent compilation cache
-[bench +   10.2s] chip-acquire: devices [TpuDevice(id=0)]
-[bench +   10.4s] chip-acquire: done in 0.2s
+[bench +   10.4s] device: {'platform': 'gpu', 'device_kind': 'NVIDIA H100 80GB HBM3', 'device_count': 1}
+[bench +   10.4s] compile cache: .jax_cache
 [bench +   10.4s] seed-datagen: generating 64x1000000 Laplace mixture on device
 [bench +   22.0s] seed-datagen: done in 11.6s
 [bench +   24.3s] seed-center+whiten done in 2.3s
@@ -111,7 +133,7 @@ def test_parse_cold_phases_seed_only_leaves_full_run_none(suite):
     full pipeline."""
     seed_only = "".join(
         l + "\n" for l in _COLD_STDERR.splitlines()
-        if "] seed" in l or "chip-acquire" in l or "cache" in l)
+        if "] seed" in l or "device:" in l or "cache" in l)
     ends = suite._parse_cold_phases(seed_only)
     assert ends["seed"] == pytest.approx(40.3)
     assert ends["datagen"] is None
@@ -126,90 +148,19 @@ def test_parse_cold_phases_missing_forensics(suite):
 
 
 _FALLBACK_STDERR = """\
-[bench +    0.0s] enabling persistent compilation cache
-[bench +    9.3s] devices: [TpuDevice(id=0)]
+[bench +    9.3s] device: {'platform': 'gpu'}
 [bench +    9.3s] datagen: generating 64x4000000 Laplace mixture on device
 [bench +   11.0s] datagen: done in 1.7s
 [bench +   17.2s] center+whiten done in 6.2s
-[bench +   80.0s] core compile/run failed (InternalError: Mosaic ...)
-[bench +   80.1s] retrying once with _TANH_NATIVE_DELTA=False (exp-form delta)
-[bench +  190.4s] core compile+warm run done in 181.1s (36 iters, ...)
+[bench +   80.0s] core: 64x4000000 failed once, retrying
+[bench +  150.0s] core compile+warm run done in 70.0s (36 iters, ...)
+[bench +  190.4s] core compile+warm run done in 40.4s (36 iters, ...)
 """
 
 
 def test_parse_cold_phases_fallback_retry(suite):
-    """The Mosaic-fallback 'core compile/run failed' line also starts
-    with the token 'core'; the phase end must come from the retry's
-    done-line so a budget-busting failed-attempt+recompile can't slip
-    past cold_check."""
+    """Only done-lines stamp a phase ('core: ... failed' starts with the
+    same token), and the LAST one counts, so the cost of a repeated
+    compile cannot slip past cold_check."""
     ends = suite._parse_cold_phases(_FALLBACK_STDERR)
     assert ends["core"] == pytest.approx(190.4)
-
-
-# ---------------------------------------------------------------------------
-# The max-T capability ladder (suite._maxt_ladder): OOM rungs step down,
-# a success stops the ladder, a real bug surfaces, all-OOM leaves an
-# explicit failed record (VERDICT r4 / ADVICE r4 semantics).
-# ---------------------------------------------------------------------------
-
-
-class _Proc:
-    def __init__(self, returncode, stdout="", stderr=""):
-        self.returncode = returncode
-        self.stdout = stdout
-        self.stderr = stderr
-
-
-def _core_kw():
-    from picard_ica_tpu.ops.densities import Tanh
-
-    return dict(density=Tanh(), ortho=True, extended=True, has_cov=True,
-                m=7, ls_tries=10, use_pallas=True, kernel_precision="auto")
-
-
-def _run_ladder(suite, monkeypatch, procs):
-    import subprocess
-
-    calls = []
-
-    def fake_run(cmd, **kw):
-        calls.append(int(cmd[-2]))  # the T argument
-        return procs[len(calls) - 1]
-
-    monkeypatch.setattr(subprocess, "run", fake_run)
-    records = []
-    suite._maxt_ladder(records, _core_kw())
-    return records, calls
-
-
-def test_maxt_ladder_steps_down_on_oom_and_stops_on_success(suite, monkeypatch):
-    import json as _json
-
-    ok = _json.dumps({"n": 256, "t": 5_000_000, "samples_per_s": 5e7,
-                      "iters": 50, "converged": True, "gradient_norm": 1e-8,
-                      "wall_s": 5.0, "stage_ls_calls": [50, 80, 100]})
-    records, calls = _run_ladder(
-        suite, monkeypatch, [_Proc(3), _Proc(0, stdout=ok), _Proc(0)])
-    assert calls == [6_000_000, 5_000_000]  # stopped after the success
-    assert len(records) == 1
-    rec = records[0]
-    assert rec["group"] == "baseline_5_max_t_single_chip"
-    assert rec["t"] == 5_000_000 and rec["iters"] == 50
-    # the roofline shim consumed stage_ls_calls into MFU columns
-    assert "stage_ls_calls" not in rec
-    assert "mxu_frac_of_bf16_peak" in rec
-
-
-def test_maxt_ladder_all_oom_leaves_failed_record(suite, monkeypatch):
-    records, calls = _run_ladder(
-        suite, monkeypatch, [_Proc(3), _Proc(3), _Proc(3)])
-    assert calls == [6_000_000, 5_000_000, 4_000_000]
-    assert len(records) == 1
-    assert records[0]["failed"] is True
-    assert "OOM" in records[0]["reason"]
-
-
-def test_maxt_ladder_real_bug_surfaces(suite, monkeypatch):
-    with pytest.raises(RuntimeError, match="maxt_row 256x6000000"):
-        _run_ladder(suite, monkeypatch,
-                    [_Proc(1, stderr="Traceback ... ValueError")])

@@ -222,71 +222,70 @@ def test_fit_never_mutates_caller_device_array():
     np.testing.assert_array_equal(np.asarray(xd), before)
 
 
-def test_tpu_large_n_covariance_fallback_warns(monkeypatch):
-    """Beyond max_pallas_cov_n, f32 data on the TPU backend falls back
-    to a single-dot covariance — a user-visible AccuracyWarning must
-    say so (VERDICT r2 weak #3: the fallback was silent). N in
-    (512, max_pallas_cov_n] now routes to the GROUPED Pallas kernel
-    instead of falling back at all (round 3)."""
-    import jax
+@pytest.mark.parametrize("shape", [(5, 256), (5, 300), (5, 5000),
+                                   (4, 2049), (40, 9001), (8, 40_000)])
+def test_chunked_xla_mean_and_covariance_match_numpy_f64(shape):
+    """The chunked, pairwise-folded XLA mean and centered covariance
+    (the device whitening path) against NumPy f64, on partial and exact
+    chunks, below and above the chunking threshold (T > 2048)."""
+    from picard_ica_tpu.ops.whitening import (
+        _cov_impl_for,
+        _mean_impl_for,
+        _prepare_stats,
+    )
 
-    from picard_ica_tpu.errors import AccuracyWarning
-    from picard_ica_tpu.ops.pallas_kernels import max_pallas_cov_n
-    from picard_ica_tpu.ops.whitening import _cov_impl_for, whiten
+    n, t = shape
+    rng = np.random.default_rng(12)
+    x64 = rng.standard_normal((n, t)) + 5.0  # large mean stresses centering
+    x = jnp.asarray(x64.astype(np.float32))
+    cov_impl, mean_impl = _cov_impl_for(x), _mean_impl_for(x)
+    assert (cov_impl, mean_impl) == (
+        ("chunked", "chunked") if t > 2048 else ("dot", "plain"))
+    mean, cov = _prepare_stats(x, cov_impl, mean_impl, True)
+    x32 = np.asarray(x, np.float64)
+    xc = x32 - x32.mean(axis=1, keepdims=True)
+    np.testing.assert_allclose(np.asarray(mean, np.float64),
+                               x32.mean(axis=1), rtol=0, atol=1e-6)
+    cov_ref = xc @ xc.T
+    rel = np.abs(np.asarray(cov, np.float64) - cov_ref).max() / np.abs(cov_ref).max()
+    assert rel < 5e-6, rel
 
-    rng = np.random.default_rng(31)
-    n_big = max_pallas_cov_n() + 128
-    x = jnp.asarray(rng.standard_normal((n_big, 4096)).astype(np.float32))
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert _cov_impl_for(x) == "dot"
-    with pytest.warns(AccuracyWarning, match=str(max_pallas_cov_n())):
-        whiten(x, n_big)
-    # Mid-range N: grouped Pallas path, no warning.
-    x_mid = jnp.asarray(rng.standard_normal((520, 4096)).astype(np.float32))
-    assert _cov_impl_for(x_mid) == "pallas"
-    x_small = jnp.asarray(rng.standard_normal((8, 4096)).astype(np.float32))
-    assert _cov_impl_for(x_small) == "pallas"
 
-
-def test_sharded_mid_n_dot_covariance_does_not_warn(monkeypatch):
-    """A mesh-sharded input with 512 < N <= max_pallas_cov_n routes to
-    the single GSPMD dot DELIBERATELY (per-shard accumulation error is
-    sqrt(n_devices) lower); it must not trip the VMEM-fallback
-    AccuracyWarning, whose message would misstate N > cap."""
+def test_sharded_mid_n_dot_covariance_does_not_warn():
+    """A mesh-sharded input routes to the single GSPMD dot
+    DELIBERATELY (per-shard accumulation error is sqrt(n_devices)
+    lower), with no warning, and agrees with the chunked route."""
     import warnings
 
     import jax
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from picard_ica_tpu.ops.whitening import _cov_impl_for, _warn_if_lossy_cov
+    from picard_ica_tpu.ops.whitening import _cov_impl_for, _covariance
     from picard_ica_tpu.parallel import sample_mesh
 
     rng = np.random.default_rng(7)
-    x = jnp.asarray(rng.standard_normal((600, 4096)).astype(np.float32))
+    x1 = jnp.asarray(rng.standard_normal((60, 4096)).astype(np.float32))
     mesh = sample_mesh()
-    x = jax.device_put(x, NamedSharding(mesh, PartitionSpec(None, "samples")))
-    impl = _cov_impl_for(x)
-    assert impl == "dot"  # the sharded route, not the VMEM fallback
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    x = jax.device_put(x1, NamedSharding(mesh, PartitionSpec(None, "samples")))
+    assert _cov_impl_for(x) == "dot"  # the sharded route
+    assert _cov_impl_for(x1) == "chunked"
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        _warn_if_lossy_cov(x, impl)
+        cov = _covariance(x)
+    np.testing.assert_allclose(np.asarray(cov), np.asarray(_covariance(x1)),
+                               rtol=2e-5, atol=2e-3)
 
 
 def test_f32_single_dot_covariance_rotates_k():
-    """QUANTIFIES the beyond-the-cap fallback the warning above
-    surfaces: a
+    """QUANTIFIES why the device path chunks its covariance: a
     single-dot f32 covariance (~sqrt(T)*eps accumulation) rotates K by
     orders of magnitude more than the chunked/pairwise design, because
     random large-N mixtures have near-degenerate eigenvalues (relative
     gaps ~1e-6) that amplify covariance noise ~1/gap into the
     eigenvectors.
 
-    Committed full-scale measurement (docs/DESIGN.md, N=600 x T=1M
-    Laplace mixture, this generator): single-f32-dot rel cov error
-    8.1e-7, min relative eigengap 1.0e-6, ||K32-K64||/||K64|| = 0.16 —
-    a 16% whitening-basis rotation. This test runs the same comparison
-    at N=300 x T=120k for suite runtime.
+    This test runs the comparison at N=300 x T=120k for suite
+    runtime.
     """
     from picard_ica_tpu.ops.whitening import (
         _covariance_chunked,
@@ -301,7 +300,7 @@ def test_f32_single_dot_covariance_rotates_k():
     x32 = x64.astype(np.float32)
 
     cov64 = x64 @ x64.T
-    cov_dot32 = (x32 @ x32.T).astype(np.float64)  # the fallback's error model
+    cov_dot32 = (x32 @ x32.T).astype(np.float64)  # single-dot error model
     cov_chunked = np.asarray(
         _covariance_chunked(jnp.asarray(x32)), np.float64
     )
@@ -312,8 +311,8 @@ def test_f32_single_dot_covariance_rotates_k():
 
     rel_dot = np.linalg.norm(k_dot - k64) / np.linalg.norm(k64)
     rel_chunked = np.linalg.norm(k_chunked - k64) / np.linalg.norm(k64)
-    # The fallback's K rotation is real (this is why the warning
-    # exists) and the chunked design is markedly closer to f64.
+    # The single dot's K rotation is real and the chunked design is
+    # markedly closer to f64.
     assert rel_dot > 1e-4, f"fallback unexpectedly accurate: {rel_dot:.2e}"
     assert rel_chunked < rel_dot / 3, (
         f"chunked {rel_chunked:.2e} vs dot {rel_dot:.2e}"
@@ -331,49 +330,8 @@ def test_nan_data_whitening_raises_computation_error():
         whiten(jnp.asarray(x), 4)
 
 
-@pytest.mark.parametrize("centered", [False, True])
-def test_grouped_covariance_matches_dense(centered, monkeypatch):
-    """The grouped-accumulator covariance (N > 512 TPU path) must match
-    the dense formulation, across group boundaries and partial tiles."""
-    from picard_ica_tpu.ops import pallas_kernels as pk
-
-    monkeypatch.setattr(pk, "_COV_GROUP", 2)
-    rng = np.random.default_rng(7)
-    n, t = 40, 9001  # bt=2048 -> 5 tiles -> 3 groups; partial last tile
-    x = jnp.asarray(rng.standard_normal((n, t)))
-    mean = jnp.asarray(rng.standard_normal(n)) if centered else None
-    out = pk._grouped_covariance(x, mean, interpret=True)
-    xc = np.asarray(x) - (np.asarray(mean)[:, None] if centered else 0.0)
-    np.testing.assert_allclose(np.asarray(out), xc @ xc.T,
-                               rtol=1e-12, atol=1e-9)
-
-
-def test_covariance_wrappers_dispatch_grouped():
-    """covariance_sums / centered_covariance_sums route N > 512 to the
-    grouped kernel transparently."""
-    from picard_ica_tpu.ops.pallas_kernels import (
-        centered_covariance_sums,
-        covariance_sums,
-    )
-
-    rng = np.random.default_rng(8)
-    n, t = 520, 700
-    x = jnp.asarray(rng.standard_normal((n, t)))
-    np.testing.assert_allclose(
-        np.asarray(covariance_sums(x, interpret=True)),
-        np.asarray(x) @ np.asarray(x).T, rtol=1e-12, atol=1e-8,
-    )
-    mean = jnp.asarray(rng.standard_normal(n))
-    xc = np.asarray(x) - np.asarray(mean)[:, None]
-    np.testing.assert_allclose(
-        np.asarray(centered_covariance_sums(x, mean, interpret=True)),
-        xc @ xc.T, rtol=1e-12, atol=1e-8,
-    )
-
-
 def test_iterative_rewhitening_reaches_functional_whiteness():
-    """The f32 device path's one-step re-whitening (VERDICT r3 item 4,
-    chip exhibit: benchmarks/whiten_accuracy_r4.json).
+    """The f32 device path's one-step re-whitening.
 
     An ill-conditioned mixture amplifies norm-scale covariance noise
     by cond(C) into the small eigendirections: the FIRST-pass K

@@ -1,10 +1,11 @@
-"""Staged MXU precision on the XLA data path (VERDICT r4 item 3).
+"""Staged precision on the XLA data path.
 
-The solver auto-routes N > 256 to the XLA path, where the hot fused
-step is MXU-rotation-bound — `kernel_precision="auto"` must therefore
-run the same bf16 -> bf16x3 -> f32 tier schedule there as the Pallas
-kernels do (one shared tier definition, ops/precision._kernel_dot).
-Reference anchor: core.rs:211-276 (the hot contractions being tiered).
+The solver routes N > 64 (and every f64 fit) to the XLA path, so
+`kernel_precision="auto"` must run the same bf16 -> bf16x3 -> f32 tier
+schedule there as the fused kernel does (one shared tier definition,
+ops/precision.tier_dot), and each tier must name one explicit dot
+algorithm. Reference anchor: core.rs:211-276 (the hot contractions
+being tiered).
 """
 
 import jax.numpy as jnp
@@ -78,6 +79,53 @@ class TestMatmulTiered:
             np.testing.assert_array_equal(np.asarray(got), np.asarray(exact))
 
 
+@pytest.mark.parametrize("tier,algorithm", [
+    ("bf16", "BF16_BF16_F32"),
+    ("bf16x3", "BF16_BF16_F32_X3"),
+    ("f32", "HIGHEST"),
+])
+def test_tier_names_one_dot_algorithm(tier, algorithm):
+    """Each tier is pinned to one explicit dot algorithm or operand
+    precision (so that it means the same on every backend and inside
+    the Triton kernel), and the lowered f32 dot carries it;
+    Precision.HIGH, which XLA:GPU runs as TF32, is used by no tier."""
+    import jax
+
+    from picard_ica_tpu.ops.precision import TIER_ALGORITHMS, tier_dot
+
+    expected = (jax.lax.Precision.HIGHEST if algorithm == "HIGHEST"
+                else getattr(jax.lax.DotAlgorithmPreset, algorithm))
+    assert TIER_ALGORITHMS[tier] == expected
+    a = jnp.ones((4, 8), jnp.float32)
+    b = jnp.ones((8, 16), jnp.float32)
+    dims = (((1,), (0,)), ((), ()))
+    jaxpr = str(jax.make_jaxpr(
+        lambda p, q: tier_dot(p, q, dims, jnp.float32, tier))(a, b))
+    assert algorithm in jaxpr
+    assert "Precision.HIGH," not in jaxpr and "Precision.HIGH)" not in jaxpr
+
+
+def test_f32_tier_survives_sample_sharding(eight_device_mesh):
+    """The sample-sharded rotation W @ X keeps the exact f32 tier after
+    SPMD partitioning (the partitioner drops a dot's algorithm there but
+    keeps its operand precision; on the GPU a dropped tier runs TF32)."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from picard_ica_tpu.ops.precision import tier_dot
+
+    x = jax.device_put(
+        jnp.ones((8, 4096), jnp.float32),
+        NamedSharding(eight_device_mesh, PartitionSpec(None, "samples")))
+    w = jnp.eye(8, dtype=jnp.float32)
+    dims = (((1,), (0,)), ((), ()))
+    hlo = jax.jit(lambda a, b: tier_dot(a, b, dims, jnp.float32, "f32")).lower(
+        w, x).compile().as_text()
+    dots = [line for line in hlo.splitlines() if " dot(" in line]
+    assert dots and all("operand_precision={highest,highest}" in d
+                        for d in dots), dots
+
+
 def jax_HI():
     import jax
 
@@ -85,7 +133,7 @@ def jax_HI():
 
 
 def test_stage_schedule_xla_f32_vs_f64():
-    """auto on the XLA path: staged at f32 (the TPU large-N regime),
+    """auto on the XLA path: staged at f32 (the large-N regime),
     single-stage at f64 (the oracle-lockstep conformance surface)."""
     opts = _opts(kernel_precision="auto")
     assert [p for p, _ in _precision_stages(opts, jnp.float32)] == [
